@@ -5,7 +5,7 @@
  *
  * Build + run:  make -C native example
  * (set PYTHONPATH to the repo root so the embedded interpreter finds
- *  spllt_tpu; JAX_PLATFORMS=cpu runs without a TPU.)
+ *  spllt_tpu; JAX_PLATFORMS=cpu runs without a GPU.)
  */
 #include <math.h>
 #include <stdio.h>
@@ -34,7 +34,6 @@ int main(void) {
   spllt_tpu_options_t opts = SPLLT_TPU_OPTIONS_DEFAULT;
   opts.nb = 16;
   opts.ordering = "natural";
-  opts.schedule = "scan";
 
   spllt_tpu_inform_t inform;
   void *h = NULL;

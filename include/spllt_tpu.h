@@ -1,6 +1,6 @@
 /* C interface to the spllt_tpu sparse Cholesky solver.
  *
- * TPU-native analogue of the reference's C interface
+ * Analogue of the reference's C interface
  * (/root/reference/include/spllt_iface.h:14-47): opaque handles over the
  * analyse / factor / solve phases on CSC lower-triangle input.  The
  * implementation (native/capi.cpp) embeds CPython and drives the JAX
@@ -25,12 +25,12 @@ typedef struct {
   int nemin;          /* supernode amalgamation threshold (32)       */
   int refine;         /* iterative-refinement steps in solve (2)     */
   const char *ordering;   /* "amd" | "nd" | "rcm" | "natural" (amd)  */
-  const char *schedule;   /* "mega" | "scan" (mega)                  */
+  const char *schedule;   /* "scan" | "unrolled" (scan)              */
   const char *precision;  /* "highest" | "default" (highest)         */
 } spllt_tpu_options_t;
 
 #define SPLLT_TPU_OPTIONS_DEFAULT \
-  { 256, 32, 2, "amd", "mega", "highest" }
+  { 256, 32, 2, "amd", "scan", "highest" }
 
 typedef struct {
   int64_t num_factor;   /* nnz(L) predicted by analyse   */

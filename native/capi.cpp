@@ -1,6 +1,6 @@
 // C ABI for spllt_tpu: embeds CPython and drives spllt_tpu.capi.
 //
-// TPU-native analogue of the reference's Fortran bind(C) interface
+// Analogue of the reference's Fortran bind(C) interface
 // (/root/reference/interfaces/C/spllt_data_ciface.F90, 780 LoC): here the
 // solver runtime is a Python/JAX framework, so the C shim owns an embedded
 // interpreter instead of wrapping Fortran.  Raw pointers cross into Python

@@ -1,4 +1,4 @@
-"""Matrix-suite benchmark (BASELINE.md config 3 analogue).
+"""Matrix-suite benchmark.
 
 The reference sweeps 37 SuiteSparse SPD matrices through analyse /
 factorize / solve (aux/list.matrix, run_tests.sh:41-96).  This
@@ -10,7 +10,8 @@ re-read from MatrixMarket/Rutherford-Boeing files so the full reader
 path is exercised at realistic sizes.
 
 Per matrix: analyse seconds (host), nnz(L), predicted flops, factor ms
-(device, rep-chained), fwd+bwd solve ms at nrhs=1, refined backward
+(public factor(), which waits for the device), fwd+bwd solve ms at
+nrhs=1, refined backward
 error.  One JSON line per matrix.
 
     python scripts/bench_matrices.py [--nb 128] [--set quick|full]
@@ -70,10 +71,7 @@ def main(argv=None) -> int:
                          "format before benchmarking")
     args = ap.parse_args(argv)
 
-    import jax.numpy as jnp
-
     from spllt_tpu import Options, analyse, factor, make_rhs, solve
-    from spllt_tpu.numeric.assemble import assemble_jax
     from spllt_tpu.sparse.io import (read_matrix_market,
                                      read_rutherford_boeing,
                                      write_matrix_market,
@@ -102,14 +100,12 @@ def main(argv=None) -> int:
 
         opts = Options(ordering=ordering, grid_shape=grid, nb=args.nb,
                        nemin=args.nemin, dtype="float32", refine=2,
-                       schedule="mega", prune_tree=False)
+                       prune_tree=False)
         t0 = time.perf_counter()
         symb = analyse(a, opts)
         t_an = time.perf_counter() - t0
 
-        # factor: compile+warm once, then rep-chained timing via values
-        num = factor(symb)
-        ex = num._solve_execs  # noqa: F841 (keep executors cached)
+        num = factor(symb)            # compile + warm
         t0 = time.perf_counter()
         for _ in range(args.reps):
             num = factor(symb)

@@ -1,4 +1,4 @@
-"""Repeated factorize + solve pipeline benchmark (BASELINE.md config 5).
+"""Repeated factorize + solve pipeline benchmark (PDE time-stepping loop).
 
 Simulates the time-stepping production workload the reference's
 akeep-reuse API exists for (doc/source/subroutines.rst:37-75): one
@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     a = poisson3d(m)
     opts = Options(ordering="nd-grid", grid_shape=(m,) * 3, nb=args.nb,
                    nemin=args.nemin, dtype="float32", refine=args.refine,
-                   schedule="mega", prune_tree=False)
+                   prune_tree=False)
     t0 = time.perf_counter()
     symb = analyse(a, opts)
     t_an = time.perf_counter() - t0

@@ -1,6 +1,6 @@
 """Solve-phase bandwidth benchmark (GB/s, nrhs sweep).
 
-BASELINE.md metric: solve GB/s at nrhs=1 and nrhs=64.  A forward+backward
+Solve GB/s at nrhs=1 and nrhs=64.  A forward+backward
 solve streams every factor block once in each direction; the effective
 bandwidth is (2 · pool_bytes + rhs traffic) / time — the solve is
 memory-bound, so GB/s against the HBM roofline is the right lens (the
@@ -31,13 +31,9 @@ def main(argv=None) -> int:
     ap.add_argument("--nemin", type=int, default=64)
     ap.add_argument("--nrhs", default="1,4,16,64")
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--schedule", default="scan", choices=["scan", "mega"],
-                    help="solve executor: bucketed scan or the solve "
-                         "megakernel (numeric/solve_mega.py)")
-    ap.add_argument("--group", type=int, default=None,
-                    help="megakernel micro-tasks per grid step")
     args = ap.parse_args(argv)
 
+    import jax
     import jax.numpy as jnp
 
     from spllt_tpu import Options, analyse, factor, make_rhs, poisson3d
@@ -49,38 +45,27 @@ def main(argv=None) -> int:
     a = poisson3d(m)
     opts = Options(ordering="nd-grid", grid_shape=(m,) * 3, nb=args.nb,
                    nemin=args.nemin, dtype="float32", refine=0,
-                   prune_tree=False, schedule="mega")
+                   prune_tree=False)
     symb = analyse(a, opts)
     num = factor(symb)
     pool = num.pool
     pool_bytes = int(np.prod(pool.shape)) * 4
-    print(f"# n={symb.n} nnzL={symb.inform.num_factor} "
+    dev = jax.devices()[0]
+    print(f"# {dev.platform} {dev.device_kind} x{len(jax.devices())} "
+          f"n={symb.n} nnzL={symb.inform.num_factor} "
           f"pool={pool_bytes/1e6:.0f} MB", file=sys.stderr)
 
-    smp = None
     for nrhs in (int(x) for x in args.nrhs.split(",")):
-        if args.schedule == "mega":
-            from spllt_tpu.numeric.solve_mega import MegaSolveExecutor
-
-            ex = MegaSolveExecutor(symb, num.plan, nrhs,
-                                   dtype=jnp.float32, group=args.group,
-                                   smp=smp)
-            smp = ex.smp
-        else:
-            ex = ScanSolveExecutor(num.splan, nrhs, dtype=jnp.float32)
+        ex = ScanSolveExecutor(num.splan, nrhs, dtype=jnp.float32)
         xt, b = make_rhs(a, nrhs)
         x0 = np.zeros((symb.n + 1, nrhs), dtype=np.float32)
         x0[:symb.n] = b[symb.perm]
-        # warm-up / compile / first-exec (forced by the fetch)
-        y = ex.full(pool, jnp.asarray(x0))
-        float(np.asarray(y[0, 0]))
-        # honest timing: chain reps through the rhs (sequential real
-        # executions), one device→host fetch at the end
+        ex.full(pool, jnp.asarray(x0)).block_until_ready()   # compile
         xd = jnp.asarray(x0)
         t0 = time.perf_counter()
         for _ in range(args.reps):
             xd = ex.full(pool, xd)
-        float(np.asarray(xd[0, 0]))
+        xd.block_until_ready()
         t = (time.perf_counter() - t0) / args.reps
         y = ex.full(pool, jnp.asarray(x0))
         rhs_bytes = 2 * symb.n * nrhs * 4

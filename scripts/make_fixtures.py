@@ -1,4 +1,4 @@
-"""Generate the BASELINE config-3 SPD fixture suite (Rutherford-Boeing).
+"""Generate the matrix-suite SPD fixtures (Rutherford-Boeing).
 
 The reference sweeps 37 SuiteSparse SPD matrices (aux/list.matrix,
 run_tests.sh:41-96); this environment has no network egress, so we

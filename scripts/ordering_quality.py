@@ -2,9 +2,9 @@
 
 The reference delegates ordering to METIS via SPRAL SSIDS; we own the
 orderings, so this sweep documents their quality on the fixture families
-(BASELINE config 3).  For a level-scheduled TPU design the tree SHAPE
-matters beyond fill: fewer, wider levels = more independent micro-tasks
-per megakernel grid step, so the table reports the factor-plan level
+on the fixture families.  For a level-scheduled design the tree SHAPE
+matters beyond fill: fewer, wider levels = more independent tasks per
+batched device call, so the table reports the factor-plan level
 count and mean/max level width too.  Host-only (symbolic), no device.
 
     python scripts/ordering_quality.py

@@ -1,6 +1,6 @@
-"""spllt_tpu — TPU-native supernodal sparse Cholesky solver.
+"""spllt_tpu — supernodal sparse Cholesky solver in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 NLAFET/SpLLT (task-based supernodal sparse Cholesky): host-side symbolic
 analyse (ordering, elimination tree, supernode amalgamation, nb-blocking),
 a statically level-scheduled batched factorization replacing the

@@ -1,6 +1,6 @@
 """Top-level symbolic analyse phase.
 
-TPU-native counterpart of ``spllt_analyse``
+Counterpart of ``spllt_analyse``
 (/root/reference/src/spllt_analyse_mod.F90:23-157): ordering → elimination
 tree → postorder → supernodes/amalgamation → flop weights → tree pruning
 marks.  The result (:class:`SymbolicFactor`) plays the role of

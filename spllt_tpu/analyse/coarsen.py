@@ -1,12 +1,12 @@
 """Dense subtree coarsening for the batched executor.
 
-TPU re-design of the reference's pruned-subtree path
+Re-design of the reference's pruned-subtree path
 (``spllt_subtree_factorize``: a whole subtree executes as ONE task with a
 generated-element buffer, /root/reference/src/spllt_kernels_mod.F90:780-821
 and spllt_factorization_mod.F90:39-261).  Here small subtrees become
 *dense frontal problems*: the subtree's columns V plus its boundary rows B
 form a dense matrix factored by one batched partial Cholesky — hundreds of
-subtrees in a single MXU op, replacing thousands of tiny leaf tasks.  The
+subtrees in a single batched op, replacing thousands of tiny leaf tasks.  The
 factored columns scatter back into the block pool, so the surviving
 between-updates into nodes above the coarse layer need no new machinery.
 

@@ -1,6 +1,6 @@
 """Elimination tree and postorder.
 
-TPU-native replacement for the tree construction SpLLT outsources to SPRAL
+Replacement for the tree construction SpLLT outsources to SPRAL
 SSIDS (``ssids_analyse`` returns sptr/sparent/rptr/rlist,
 /root/reference/src/spllt_analyse_mod.F90:129-131).  Host-side NumPy; a C++
 fast path lives in native/symbolic.cpp (bound via spllt_tpu.analyse.native).

@@ -2,19 +2,46 @@
 
 The reference's analyse phase leans on native code (SPRAL SSIDS + METIS,
 /root/reference/src/spllt_analyse_mod.F90:26-28).  Our native component is
-native/symbolic.cpp, built into libspllt_symbolic.so; every entry point has a
-NumPy fallback so the package works without the library.
+native/symbolic.cpp, built into native/libspllt_symbolic.so on first use
+(``make -C native``) and rebuilt when the source is newer; every entry
+point has a NumPy fallback so the package works without a C++ compiler.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "native")
+_LIB_NAME = "libspllt_symbolic.so"
+
+
+def _build(lib: str, src: str) -> None:
+    """Build ``lib`` from ``src`` unless it is up to date.  Concurrent
+    processes each build under their own temporary name and rename it
+    into place atomically, so a reader never sees a partial library."""
+    if (os.path.exists(lib)
+            and os.path.getmtime(lib) >= os.path.getmtime(src)):
+        return
+    tmp = f"{_LIB_NAME}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run(["make", "-s", "-C", _NATIVE_DIR,
+                               f"TARGET={tmp}"],
+                              capture_output=True, text=True)
+        if proc.returncode == 0:
+            os.replace(os.path.join(_NATIVE_DIR, tmp), lib)
+    except OSError:
+        pass        # no make / compiler: the NumPy fallbacks run
+    finally:
+        if os.path.exists(os.path.join(_NATIVE_DIR, tmp)):
+            os.remove(os.path.join(_NATIVE_DIR, tmp))
 
 
 def _load():
@@ -22,17 +49,15 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    here = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
-    for cand in (
-        os.path.join(here, "native", "libspllt_symbolic.so"),
-        os.path.join(os.path.dirname(__file__), "libspllt_symbolic.so"),
-    ):
-        if os.path.exists(cand):
-            try:
-                _LIB = ctypes.CDLL(cand)
-                break
-            except OSError:
-                pass
+    lib = os.path.join(_NATIVE_DIR, _LIB_NAME)
+    src = os.path.join(_NATIVE_DIR, "symbolic.cpp")
+    if os.path.exists(src):
+        _build(lib, src)
+    if os.path.exists(lib):
+        try:
+            _LIB = ctypes.CDLL(lib)
+        except OSError:
+            pass
     return _LIB
 
 

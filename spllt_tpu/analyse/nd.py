@@ -15,9 +15,9 @@ the standard multilevel recipe:
   5. recurse on the two parts; separator vertices are numbered last;
      small leaves are ordered by AMD (METIS uses MMD similarly).
 
-For a level-scheduled TPU factorization, ND matters beyond fill: it
+For a level-scheduled factorization, ND matters beyond fill: it
 produces balanced, shallow elimination trees, which widen the level
-schedule (more independent tasks per megakernel grid step).  See
+schedule (more independent tasks per batched device call).  See
 scripts/ordering_quality.py for the fill/level-balance evaluation.
 """
 

@@ -2,7 +2,7 @@
 
 The reference ships a C interface over opaque akeep/fkeep handles
 (/root/reference/include/spllt_iface.h:14-47,
-interfaces/C/spllt_data_ciface.F90); this is its TPU-native analogue: a
+interfaces/C/spllt_data_ciface.F90); this is its analogue: a
 C caller links ``libspllt_tpu_c.so`` (built from native/capi.cpp, which
 embeds CPython) and drives analyse/factor/solve on raw CSC arrays.  Raw
 pointers cross the boundary as integers and are wrapped here with

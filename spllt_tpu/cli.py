@@ -22,7 +22,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="spllt_tpu",
-        description="TPU-native supernodal sparse Cholesky solver")
+        description="Supernodal sparse Cholesky solver (JAX)")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--mat", help="Rutherford-Boeing matrix file")
     src.add_argument("--mm", help="MatrixMarket matrix file")
@@ -34,8 +34,6 @@ def build_parser() -> argparse.ArgumentParser:
                      help="generate random SPD matrix of order N")
     p.add_argument("--nb", type=int, default=256,
                    help="factor block size (default 256)")
-    p.add_argument("--solve-group", type=int, default=None,
-                   help="solve-megakernel tasks per grid step")
     p.add_argument("--nemin", type=int, default=32,
                    help="amalgamation threshold (default 32)")
     p.add_argument("--ordering", default=None,
@@ -62,9 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace", metavar="PATH", default=None,
                    help="dump a Chrome-trace JSON of host-side phases")
     p.add_argument("--schedule", default="scan",
-                   choices=["scan", "unrolled", "mega"],
-                   help="mega = whole factorization as one pallas kernel "
-                        "(f32, nb%%128==0 on TPU; falls back to scan)")
+                   choices=["scan", "unrolled"],
+                   help="scan = bucketed lax.scan level schedule; "
+                        "unrolled = one call site per level (debugging)")
     p.add_argument("--coarse", action="store_true",
                    help="batched dense leaf-subtree phase")
     p.add_argument("--dot-tree", metavar="PATH", default=None,
@@ -101,7 +99,7 @@ def main(argv=None) -> int:
         grid_shape=grid_shape, mode=args.mode, dtype=args.dtype,
         refine=args.refine, prune_tree=not args.no_prune_tree,
         ndevices=args.ndev, schedule=args.schedule,
-        coarse_subtrees=args.coarse, solve_group=args.solve_group,
+        coarse_subtrees=args.coarse,
     )
 
     from .utils.timers import print_timers, timer

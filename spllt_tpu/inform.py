@@ -16,7 +16,7 @@ class Inform:
     num_factor: int = 0      # entries in L (supernodal, incl. explicit zeros)
     num_flops: int = 0       # flops for the factorization
     num_nodes: int = 0
-    # planning statistics (TPU-specific)
+    # planning statistics (level schedule)
     num_blocks: int = 0
     num_levels: int = 0
     num_tasks: int = 0

@@ -1,4 +1,4 @@
-"""Batched level-scheduled factorization under one jit (the TPU runtime).
+"""Batched level-scheduled factorization under one jit (the device runtime).
 
 Each DAG level becomes at most four batched device ops over the block pool:
 
@@ -19,14 +19,64 @@ full tiles.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 
 import jax
 import jax.numpy as jnp
 
 __all__ = ["FactorExecutor"]
+
+# bytes of each gathered updbt operand per chunk: a level's full
+# [K, nb, cmax*nb] gathers exceed an 80 GB card at nb=256 on Poisson 64^3
+UPDBT_CHUNK_BYTES = 1 << 30
+
+
+def _bmm_nt(a, b, precision):
+    """Batched a @ bᵀ over the leading axis."""
+    return jax.lax.dot_general(a, b, (((2,), (2,)), ((0,), (0,))),
+                               precision=precision,
+                               preferred_element_type=a.dtype)
+
+
+def _updbt(pool, maps, blk_n, srcvec, dst, mr, mc, svp, cv, cmax,
+           precision):
+    """Width-fused between-node updates (``spllt_update_between``).
+
+    Task t gathers, through the position maps ``maps[mr[t]]`` (rows) and
+    ``maps[mc[t]]`` (cols), the source node's rows from all of its ``cv[t]``
+    column tiles (flat row bases ``srcvec[svp[t]:]``) into [nb, cmax·nb]
+    panels, multiplies them NT in one batched GEMM and scatter-adds the
+    negated product into tile ``dst[t]``.  Tasks run in chunks whose
+    gathers stay under ``UPDBT_CHUNK_BYTES``; chunking is exact because an
+    update's sources are factored blocks, never destinations of the same
+    level."""
+    nb = pool.shape[1]
+    ntask = dst.shape[0]
+    per_task = nb * cmax * nb * np.dtype(pool.dtype).itemsize
+    kc = max(1, UPDBT_CHUNK_BYTES // per_task)
+    iota = jax.lax.broadcasted_iota(jnp.int32, (1, nb), 1)
+    iot_c = jax.lax.broadcasted_iota(jnp.int32, (1, cmax), 1)
+    for c0 in range(0, ntask, kc):
+        sl = slice(c0, min(ntask, c0 + kc))
+        d = dst[sl]
+        pr = maps[mr[sl]]
+        pc = maps[mc[sl]]
+        svi = jnp.minimum(svp[sl][:, None] + iot_c, srcvec.shape[0] - 1)
+        sv = srcvec[svi]                              # [k, cmax]
+        kbm = iot_c < cv[sl][:, None]
+        vr = pr >= 0
+        vc = (pc >= 0) & (iota < blk_n[d][:, None])
+        poolf = pool.reshape(-1, nb)
+
+        def gathw(p, v):
+            val = v[:, :, None] & kbm[:, None, :]
+            fr = jnp.where(val, sv[:, None, :] * nb + p[:, :, None], 0)
+            g = poolf[fr] * val[..., None].astype(pool.dtype)
+            return g.reshape(g.shape[0], nb, cmax * nb)
+
+        pool = pool.at[d].add(-_bmm_nt(gathw(pr, vr), gathw(pc, vc),
+                                       precision))
+    return pool
 
 
 def _potrf_batch(tiles, kvec, nb):
@@ -56,12 +106,12 @@ def _potrf_batch_blocked(tiles, kvec, sp, panel: int = 128,
                          precision="highest"):
     """Blocked right-looking batched potrf for wide tiles.
 
-    XLA's lowering of ``lax.linalg.cholesky`` on [B, sp, sp] compiles
-    catastrophically slowly for sp > 128 (>40 min server-side for
-    sp=256).  This runs sp/panel panel steps — panel-wide masked
-    Cholesky (via :func:`_potrf_batch`), a trailing triangular solve of
-    the rows below the panel, and a rank-``panel`` MXU update of the
-    trailing square — so every cholesky call site stays 128-wide.
+    Runs sp/panel panel steps — panel-wide masked Cholesky (via
+    :func:`_potrf_batch`), a trailing triangular solve of the rows below
+    the panel, and a rank-``panel`` GEMM update of the trailing square.
+    On the H100 this beats one batched cholesky of the whole tile by
+    about 1.5x at sp=256 and batch >= 512 (PERF.md); for sp <= panel it
+    is that one call.
     Semantics match ``_potrf_batch(tiles, kvec, sp)`` exactly: columns
     >= kvec are zeroed, rows >= kvec (boundary rows of a dense front)
     are solved like any below-rows.
@@ -90,10 +140,7 @@ def _potrf_batch_blocked(tiles, kvec, sp, panel: int = 128,
                 < ke).astype(f32)
         sol = sol * colm
         out = out.at[:, p0 + w:, p0:p0 + w].set(sol)
-        upd = jax.lax.dot_general(
-            sol, sol, (((2,), (2,)), ((0,), (0,))),
-            precision=precision, preferred_element_type=f32)
-        out = out.at[:, p0 + w:, p0 + w:].add(-upd)
+        out = out.at[:, p0 + w:, p0 + w:].add(-_bmm_nt(sol, sol, precision))
     # zero the strict upper triangle / padded columns (panel steps never
     # touch the above-panel rows of later columns)
     ke = kvec[:, None, None]
@@ -147,54 +194,25 @@ class FactorExecutor:
         nb = self.nb
         prec = self.precision
 
-        def bmm_nt(a, b):  # a @ b^T batched
-            return jax.lax.dot_general(
-                a, b, (((2,), (2,)), ((0,), (0,))),
-                precision=prec, preferred_element_type=a.dtype)
-
         def run(pool, args):
-            iota = jax.lax.broadcasted_iota(jnp.int32, (1, nb), 1)
-            poolf = pool.reshape(-1, nb)
             for lvl in range(1, fp.nlevels + 1):
                 # ---- inter-node updates (width-fused) -------------------- #
                 s, e = int(fp.updbt_ptr[lvl]), int(fp.updbt_ptr[lvl + 1])
                 if e > s:
-                    cmax = int(fp.updbt_c[s:e].max())
-                    dst = args["updbt_dst"][s:e]
-                    pr = args["maps"][args["updbt_mr"][s:e]]
-                    pc = args["maps"][args["updbt_mc"][s:e]]
-                    svp = args["updbt_svp"][s:e]
-                    cv = args["updbt_c"][s:e]
-                    iot_c = jax.lax.broadcasted_iota(
-                        jnp.int32, (1, cmax), 1)
-                    svi = jnp.minimum(svp[:, None] + iot_c,
-                                      args["srcvec"].shape[0] - 1)
-                    sv = args["srcvec"][svi]              # [B, cmax]
-                    kbm = iot_c < cv[:, None]             # [B, cmax]
-                    vr = pr >= 0
-                    vc = (pc >= 0) & (iota < args["blk_n"][dst][:, None])
-
-                    def gathw(p, v):
-                        val = v[:, :, None] & kbm[:, None, :]
-                        fr = jnp.where(val,
-                                       sv[:, None, :] * nb
-                                       + p[:, :, None], 0)
-                        g = poolf[fr] * val[..., None].astype(pool.dtype)
-                        return g.reshape(g.shape[0], nb, cmax * nb)
-
-                    r = gathw(pr, vr)
-                    c = gathw(pc, vc)
-                    pool = pool.at[dst].add(-bmm_nt(r, c))
-                    poolf = pool.reshape(-1, nb)
+                    pool = _updbt(
+                        pool, args["maps"], args["blk_n"], args["srcvec"],
+                        args["updbt_dst"][s:e], args["updbt_mr"][s:e],
+                        args["updbt_mc"][s:e], args["updbt_svp"][s:e],
+                        args["updbt_c"][s:e], int(fp.updbt_c[s:e].max()),
+                        prec)
                 # ---- intra-node updates ---------------------------------- #
                 s, e = int(fp.syrk_ptr[lvl]), int(fp.syrk_ptr[lvl + 1])
                 if e > s:
                     si = args["syrk_src_i"][s:e]
                     sj = args["syrk_src_j"][s:e]
                     dst = args["syrk_dst"][s:e]
-                    u = bmm_nt(pool[si], pool[sj])
+                    u = _bmm_nt(pool[si], pool[sj], prec)
                     pool = pool.at[dst].add(-u)
-                    poolf = pool.reshape(-1, nb)
                 # ---- potrf ----------------------------------------------- #
                 s, e = int(fp.potrf_ptr[lvl]), int(fp.potrf_ptr[lvl + 1])
                 if e > s:
@@ -203,7 +221,6 @@ class FactorExecutor:
                                                args["potrf_k"][s:e], nb,
                                                precision=prec)
                     pool = pool.at[blk].set(out)
-                    poolf = pool.reshape(-1, nb)
                 # ---- trsm ------------------------------------------------ #
                 s, e = int(fp.trsm_ptr[lvl]), int(fp.trsm_ptr[lvl + 1])
                 if e > s:
@@ -212,7 +229,6 @@ class FactorExecutor:
                     out = _trsm_batch(pool[diag], pool[dst],
                                       args["trsm_k"][s:e], nb)
                     pool = pool.at[dst].set(out)
-                    poolf = pool.reshape(-1, nb)
             notpos = jnp.isnan(jnp.sum(pool[:, 0, 0]))
             return pool, notpos
 

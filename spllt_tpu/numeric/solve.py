@@ -1,11 +1,11 @@
 """Forward/backward substitution executors (NumPy oracle + batched JAX).
 
-TPU-native counterpart of the reference solve phase
+Counterpart of the reference solve phase
 (/root/reference/src/spllt_solve_mod.F90, spllt_solve_kernels_mod.F90):
 level-scheduled batched gather → triangular-solve / GEMM → scatter over a
 padded right-hand-side panel x[n+1, nrhs] (row n is the dump row for
 masked slots).  Supports job = fwd (Lx=b), bwd (Lᵀx=b) or both, and any
-number of right-hand sides (the nrhs axis rides the MXU).
+number of right-hand sides (the nrhs axis becomes the GEMM width).
 """
 
 from __future__ import annotations

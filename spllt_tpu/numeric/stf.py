@@ -4,7 +4,7 @@ The reference's STF build runs every task inline in submission order and is
 the de-facto deterministic oracle used to debug the parallel runtimes
 (/root/reference/src/spllt_stf_mod.F90, SURVEY §4).  This module plays the
 same role: it executes the *same* FactorPlan level by level with float64
-NumPy kernels, so the batched TPU path can be validated task-for-task.
+NumPy kernels, so the batched device path can be validated task-for-task.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ per spad bucket, assemble the fronts from the user values, run ONE batched
 partial Cholesky (`_potrf_batch` — chol of the leading |V| columns plus
 the boundary-row solve), and scatter the factored columns back into the
 block pool.  Replaces the reference's per-subtree sequential
-``spllt_subtree_factorize`` tasks (SURVEY §2.5) with a single MXU op per
+``spllt_subtree_factorize`` tasks (SURVEY §2.5) with a single batched op per
 size bucket.
 """
 
@@ -19,8 +19,6 @@ import jax.numpy as jnp
 
 from ..errors import NotPositiveDefiniteError
 from .factor import _potrf_batch_blocked
-from .factor_scan import _on_cpu
-from .pallas_potrf import pallas_potrf_batch
 
 __all__ = ["subtree_np", "DenseSubtreeExecutor"]
 
@@ -63,23 +61,20 @@ def subtree_np(pool: np.ndarray, values: np.ndarray, fp) -> np.ndarray:
 # JAX batched executor
 # ===================================================================== #
 def _dotx(a, b, dims, f32):
-    """Exact data-movement contraction: precision=HIGHEST forces XLA's
-    full-fidelity multi-pass scheme (measured on this backend: DEFAULT
-    truncates f32 AND bf16 operands to one bf16 pass — an identity
-    one-hot move loses 8 mantissa bits; HIGHEST is bit-exact at ~87% of
-    bf16 peak per BASELINE's gemm sweep)."""
+    """Exact data-movement contraction: a one-hot product moves values
+    bit-exactly only in true float32, so precision=HIGHEST (a reduced
+    precision such as TF32 would drop mantissa bits of the moved
+    values)."""
     return jax.lax.dot_general(a, b, dims, precision=jax.lax.Precision.HIGHEST,
                                preferred_element_type=f32)
 
 
 class DenseSubtreeExecutor:
-    """Batched dense coarse-leaf phase, block-level MXU data movement.
+    """Batched dense coarse-leaf phase, block-level data movement.
 
     Front assembly and factored-column scatter-back run as chunked
-    one-hot contractions between POOL TILES and fronts — the
-    element-granular advanced indexing they replace serialized on TPU
-    (measured round 5: 128 ms assembly + 832 ms scatter-back at Poisson
-    32³ vs ~2 ms for the whole phase this way).  Assembly reads the
+    one-hot contractions between POOL TILES and fronts, in place of
+    element-granular advanced indexing.  Assembly reads the
     already-assembled pool (assemble_jax runs first in the factor
     pipeline), so no value gather exists at all:
 
@@ -100,26 +95,9 @@ class DenseSubtreeExecutor:
         self._tabs = []
         for b in fp.dense or []:
             ns, sp = int(b["nsub"]), int(b["spad"])
-            self._interpret = _on_cpu()
-            # route EVERY bucket through the pallas potrf body on TPU by
-            # padding fronts up to the 128-lane multiple (the round-3
-            # XLA batched-cholesky fallback was the compile-time sink
-            # that kept coarsening off in production; padded rows/cols
-            # are zero with a unit diagonal supplied by kvec masking)
-            if (np.dtype(dtype) == np.float32 and not self._interpret
-                    and sp % 128 != 0):
-                sp = -(-sp // 128) * 128
-            use_pallas = (np.dtype(dtype) == np.float32
-                          and (sp % 128 == 0 or self._interpret))
-            group = (max(1, min(ns, (8 * 128 * 128) // (sp * sp)))
-                     if use_pallas else 0)
-            if group and ns % group:
-                ns = ns + (group - ns % group)   # pad fronts (kvec=0)
-            kvec = np.zeros(ns, dtype=np.int64)
-            kvec[:int(b["nsub"])] = b["kvec"]
             self._tabs.append(dict(
-                spad=sp, nsub=ns, group=group,
-                kvec=i32(kvec),
+                spad=sp, nsub=ns,
+                kvec=i32(b["kvec"]),
                 sc_blk=i32(b["sc_blk"]), sc_sub=i32(b["sc_sub"]),
                 sc_rpos=i32(b["sc_rpos"]),
                 sc_rval=jnp.asarray(b["sc_rval"]),
@@ -130,8 +108,8 @@ class DenseSubtreeExecutor:
 
     def _build(self):
         nb = self.nb
-        metas = [(t["spad"], t["nsub"], t["group"],
-                  int(t["sc_blk"].shape[0])) for t in self._tabs]
+        metas = [(t["spad"], t["nsub"], int(t["sc_blk"].shape[0]))
+                 for t in self._tabs]
 
         def run(pool, values, tabs):
             f32 = pool.dtype
@@ -145,7 +123,7 @@ class DenseSubtreeExecutor:
                 pc = ((iot == t["sc_cpos"][sl][:, :, None])
                       & t["sc_cval"][sl][:, :, None]).astype(pdt)
                 return pr, pc
-            for (sp, ns, grp, nblk), t in zip(metas, tabs):
+            for (sp, ns, nblk), t in zip(metas, tabs):
                 chunk = max(1, self._CHUNK_ELEMS // (sp * sp))
                 # ---- assembly: fronts from pool tiles ----------------- #
                 f = jnp.zeros((ns, sp, sp), f32)
@@ -163,11 +141,7 @@ class DenseSubtreeExecutor:
                     contrib = jnp.swapaxes(contrib, 1, 2)
                     f = f.at[t["sc_sub"][sl]].add(contrib)
                 # ---- batched partial Cholesky ------------------------- #
-                if grp:
-                    f = pallas_potrf_batch(f, t["kvec"], sp, group=grp,
-                                           interpret=self._interpret)
-                else:
-                    f = _potrf_batch_blocked(f, t["kvec"], sp)
+                f = _potrf_batch_blocked(f, t["kvec"], sp)
                 # ---- scatter-back: tiles from fronts ------------------ #
                 for c0 in range(0, nblk, chunk):
                     sl = slice(c0, min(nblk, c0 + chunk))

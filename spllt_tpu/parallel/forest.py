@@ -1,6 +1,6 @@
 """Multi-device forest-parallel factorization + solve (shard_map).
 
-TPU-native replacement for the reference's distributed-memory path.  SpLLT
+Replacement for the reference's distributed-memory path.  SpLLT
 distributes blocks over MPI ranks via PaRSEC's ``blk_rank_of`` map and lets
 the dataflow runtime generate point-to-point block transfers
 (/root/reference/src/PaRSEC/spllt_parsec_blk_data.c:33-64, factorize.jdf);
@@ -10,7 +10,7 @@ partitioned: the flop-balanced L0 layer from the tree pruning
 device factors its subtrees locally with the SAME bucketed lax.scan level
 schedule as the single-chip production executor (numeric/factor_scan.py) —
 per-device task tables padded to SPMD-uniform shapes — ancestor
-contribution blocks are reduced with one ``psum`` over ICI, and the (small)
+contribution blocks are reduced with one ``psum`` per bucket, and the (small)
 top of the forest is factored replicated.  Communication is a single
 deterministic collective per phase — no runtime scheduler, no
 point-to-point messaging, and bitwise-reproducible results for a fixed
@@ -189,11 +189,9 @@ class MultiDeviceFactor:
     top_col: np.ndarray
     top_val_idx: np.ndarray
     nb: int
-    # raw per-device/per-kind task lists (local ids), kept so the
-    # megakernel stream builder (forest_mega) can consume the SAME task
-    # split the scan tables were built from
+    # raw per-device/per-kind phase-A task lists (local ids); they place
+    # the overlapped ancestor psums (_top_psum_slices)
     a_tasks: dict | None = None
-    c_tasks: dict | None = None
 
     def local_pools(self, values: np.ndarray, dtype=np.float32):
         """Host-side assembly of the sharded local pools
@@ -370,7 +368,7 @@ def build_multidevice_factor(symb, plan, fplan, ndev: int, splan=None
         n=symb.n,
         asm_rowflat=asm_rowflat, asm_col=asm_col, asm_val_idx=asm_val_idx,
         top_rowflat=top_rowflat, top_col=top_col, top_val_idx=top_val_idx,
-        nb=nb, a_tasks=a, c_tasks=c,
+        nb=nb, a_tasks=a,
     )
 
 
@@ -384,44 +382,19 @@ def _factor_scan_phase(pool, buckets_dev, maps, blk_n, srcvec, cmax, nb,
     peeled) with lax.scan per bucket — the multi-device twin of
     ScanFactorExecutor._build's level body (numeric/factor_scan.py)."""
     import jax
-    import jax.numpy as jnp
+
+    from ..numeric.factor import (_bmm_nt, _potrf_batch_blocked,
+                                  _trsm_batch, _updbt)
 
     cmax = max(1, cmax)
 
-    def bmm_nt(x, y):
-        return jax.lax.dot_general(
-            x, y, (((2,), (2,)), ((0,), (0,))),
-            precision=prec, preferred_element_type=x.dtype)
-
-    from ..numeric.factor import _potrf_batch_blocked, _trsm_batch
-
-    iota = jax.lax.broadcasted_iota(jnp.int32, (1, nb), 1)
-
     def level_body(pool, tb):
         if "updbt_dst" in tb:
-            dst = tb["updbt_dst"]
-            pr = maps[tb["updbt_mr"]]
-            pc = maps[tb["updbt_mc"]]
-            svp = tb["updbt_svp"]
-            cv = tb["updbt_c"]
-            iot_c = jax.lax.broadcasted_iota(jnp.int32, (1, cmax), 1)
-            svi = jnp.minimum(svp[:, None] + iot_c, srcvec.shape[0] - 1)
-            sv = srcvec[svi]
-            kbm = iot_c < cv[:, None]
-            vr = pr >= 0
-            vc = (pc >= 0) & (iota < blk_n[dst][:, None])
-            poolf = pool.reshape(-1, nb)
-
-            def gathw(p, v):
-                val = v[:, :, None] & kbm[:, None, :]
-                fr = jnp.where(val,
-                               sv[:, None, :] * nb + p[:, :, None], 0)
-                g = poolf[fr] * val[..., None].astype(pool.dtype)
-                return g.reshape(g.shape[0], nb, cmax * nb)
-
-            pool = pool.at[dst].add(-bmm_nt(gathw(pr, vr), gathw(pc, vc)))
+            pool = _updbt(pool, maps, blk_n, srcvec, tb["updbt_dst"],
+                          tb["updbt_mr"], tb["updbt_mc"], tb["updbt_svp"],
+                          tb["updbt_c"], cmax, prec)
         if "syrk_i" in tb:
-            u = bmm_nt(pool[tb["syrk_i"]], pool[tb["syrk_j"]])
+            u = _bmm_nt(pool[tb["syrk_i"]], pool[tb["syrk_j"]], prec)
             pool = pool.at[tb["syrk_dst"]].add(-u)
         if "potrf_blk" in tb:
             blk = tb["potrf_blk"]
@@ -701,11 +674,11 @@ def reconstruct_global_pool(md: MultiDeviceFactor, pools, plan):
 
 # ------------------------------------------------------------------------- #
 def dryrun(n_devices: int, m: int = 16, nb: int = 8, nemin: int = 4,
-           grid3d: bool = False, check: bool = True,
-           schedule: str = "scan") -> None:
-    """Create an n-device mesh, jit the full multi-device factorization +
-    solve step with real tree shardings, run it, and (optionally) check
-    factor and solution against the sequential oracle."""
+           grid3d: bool = False, check: bool = True) -> None:
+    """Create an n-device mesh of virtual CPU devices, jit the full
+    multi-device factorization + solve step with real tree shardings, run
+    it, and (optionally) check factor and solution against the sequential
+    oracle."""
     import os
 
     flags = os.environ.get("XLA_FLAGS", "")
@@ -723,10 +696,7 @@ def dryrun(n_devices: int, m: int = 16, nb: int = 8, nemin: int = 4,
     from ..plan.factor_tasks import build_factor_plan
     from ..plan.solve_tasks import build_solve_plan
 
-    devs = jax.devices()
-    if len(devs) < n_devices:
-        devs = jax.devices("cpu")  # virtual host devices for dry runs
-    devs = devs[:n_devices]
+    devs = jax.devices("cpu")[:n_devices]
     assert len(devs) == n_devices, (
         f"need {n_devices} devices, have {len(devs)}")
     mesh = Mesh(np.array(devs), ("tree",))
@@ -748,12 +718,7 @@ def dryrun(n_devices: int, m: int = 16, nb: int = 8, nemin: int = 4,
 
     dtype = np.float32
     pools_np, top_np = md.local_pools(symb.a_perm.values, dtype=dtype)
-    if schedule == "mega":
-        from .forest_mega import make_sharded_factorize_mega
-
-        fstep = make_sharded_factorize_mega(md, mesh, dtype)
-    else:
-        fstep = make_sharded_factorize(md, mesh, dtype)
+    fstep = make_sharded_factorize(md, mesh, dtype)
     sstep = make_sharded_solve(md, mesh)
 
     pools = jax.device_put(

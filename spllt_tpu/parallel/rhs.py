@@ -1,6 +1,6 @@
 """Multi-RHS solve sharded over the rhs axis (data parallelism).
 
-TPU-native analogue of the reference's multi-RHS blocking
+Analogue of the reference's multi-RHS blocking
 (/root/reference/src/spllt_solve_kernels_mod.F90:128-133,200-204 — BLAS-3
 nrhs panels): with the factor pool replicated on every device, the rhs
 panel is sharded column-wise over a ``rhs`` mesh axis and each device runs
@@ -8,8 +8,8 @@ the identical level-scheduled fwd/bwd program on its slice.  The solve is
 embarrassingly parallel along nrhs — zero collectives; scaling is limited
 only by the per-device pool bandwidth.
 
-Entered via ``shard_map`` (not the automatic partitioner) so the pallas
-left-solve kernel sees local shapes directly.
+Entered via ``shard_map`` (not the automatic partitioner) so each device
+runs the single-device solve program on local shapes.
 """
 
 from __future__ import annotations
@@ -36,12 +36,10 @@ def make_sharded_solve(ex, mesh, axis: str = "rhs"):
     def local(pool_ext, x, ft, bt):
         return bwd_run(pool_ext, fwd_run(pool_ext, x, ft), bt)
 
-    # check_vma=False: the pallas left-solve kernel's out_shape carries
-    # no varying-mesh-axes annotation, which strict vma checking rejects
     sharded = jax.shard_map(
         local, mesh=mesh,
         in_specs=(P(), P(None, axis), P(), P()),
-        out_specs=P(None, axis), check_vma=False)
+        out_specs=P(None, axis))
     jfn = jax.jit(sharded, donate_argnums=(1,))
 
     def fn(pool_ext, x):
@@ -81,8 +79,7 @@ def solve_rhs_sharded(num, b: np.ndarray, mesh=None, ndev: int | None = None,
         dtype = (jnp.float64 if num.options.dtype == "float64"
                  else jnp.float32)
         ex = ScanSolveExecutor(num.splan, nrhs_pad, dtype=dtype,
-                               matmul_precision=num.options.precision,
-                               pallas=num.options.pallas_updates)
+                               matmul_precision=num.options.precision)
         fn, xsh = make_sharded_solve(ex, mesh)
         cached = (ex, fn, xsh)
         num._solve_execs[key] = cached

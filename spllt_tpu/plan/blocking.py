@@ -2,9 +2,9 @@
 
 Replaces the reference's block partition (per-node nb blocking,
 /root/reference/src/spllt_analyse_mod.F90:305-469) and value map
-(``spllt_make_map``/``spllt_lcol_map``, :1033-1171) with a TPU layout: every
+(``spllt_make_map``/``spllt_lcol_map``, :1033-1171) with a device layout: every
 block is an nb×nb tile of a flat pool ``pool[nblocks, nb, nb]`` (static
-shape, MXU aligned).  Node rows are tiled with the SAME nb partition as
+shape).  Node rows are tiled with the SAME nb partition as
 columns, so the diagonal tile of block-column jb is row-tile jb and holds
 [[chol(D), 0], [B·chol(D)^{-T}, 0]] after factorization — rectangular diag
 blocks (reference ``spllt_factor_diag_block`` potrf+trsm,

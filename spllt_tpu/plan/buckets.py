@@ -1,7 +1,7 @@
 """Level bucketing: compress the level schedule into a few lax.scan loops.
 
 The unrolled executor emits one XLA call site per (level, kind) — compile
-time grows linearly with tree depth (minutes on TPU for deep trees).  Here
+time grows linearly with tree depth.  Here
 consecutive levels with similar task-count profiles are grouped into
 *buckets*; within a bucket every level is padded to the bucket's per-kind
 maximum width and the bucket executes as ONE ``lax.scan`` over levels, so

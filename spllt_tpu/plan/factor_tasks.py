@@ -32,8 +32,8 @@ the per-block-column tasks of the reference fuse into ONE task per
 (source node → destination tile pair) contracting over the node's full
 column width: a task stores (dest, map_row_id, map_col_id, srcvec offset,
 ncoltiles), where the srcvec table gives the per-block-column flat row
-bases.  This cuts task and scatter counts by the node width and feeds the
-MXU [nb, C·nb] × [C·nb, nb] products.
+bases.  This cuts task and scatter counts by the node width and feeds
+[nb, C·nb] × [C·nb, nb] GEMMs.
 """
 
 from __future__ import annotations
@@ -289,9 +289,8 @@ def _finish_plan(plan, pt, tr, sy, ub_lvl, ub, srcvec, srcvec_node,
         if len(lv):
             nlevels = max(nlevels, int(lv.max()))
 
-    # order potrf/trsm within each level by column count (descending) so
-    # the pallas kernels' per-group kvmax panel skipping sees groups of
-    # similar width — leaf tiles (kv << nb) then run 1 panel, not nb/pb
+    # order potrf/trsm within each level by column count (descending):
+    # a fixed, deterministic task order within each level
     if len(pt):
         pt = pt[np.lexsort((-pt[:, 2], pt[:, 0]))]
     if len(tr):

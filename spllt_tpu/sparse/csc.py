@@ -1,6 +1,6 @@
 """Compressed-sparse-column symmetric matrix container.
 
-TPU-native analogue of the reference's matrix handling (SpLLT keeps the user's
+Analogue of the reference's matrix handling (SpLLT keeps the user's
 lower-triangle CSC ``ptr/row/val`` and verifies it with SPRAL ``cscl_verify``;
 see /root/reference/test/test_solve_phasis.F90:158-163 and
 /root/reference/src/spllt_mod.F90:426-495).  We store the lower triangle

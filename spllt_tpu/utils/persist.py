@@ -16,7 +16,7 @@ __all__ = ["save_symbolic", "load_symbolic", "save_factor", "load_factor"]
 
 _OPT_FIELDS = ("nb", "nemin", "ordering", "grid_shape", "prune_tree",
                "mode", "schedule", "dtype", "precision", "refine",
-               "ndevices", "solve_group")
+               "ndevices")
 
 
 def save_symbolic(path: str, symb) -> None:
@@ -51,7 +51,8 @@ def load_symbolic(path: str):
     opts = dict(z["options"][0])
     if opts.get("grid_shape") is not None:
         opts["grid_shape"] = tuple(int(x) for x in opts["grid_shape"])
-    # drop fields saved by older versions that no longer exist
+    # drop fields saved by older versions that no longer exist (e.g.
+    # solve_group)
     known = {f.name for f in __import__("dataclasses").fields(Options)}
     opts = {k: v for k, v in opts.items() if k in known}
     options = Options(**opts)

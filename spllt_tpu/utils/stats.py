@@ -2,7 +2,7 @@
 
 Analogue of ``spllt_tree_stat_mod`` (dependency-count statistics,
 /root/reference/src/spllt_tree_stat_mod.F90) extended with the numbers
-that matter for a statically scheduled TPU program: level-width
+that matter for a statically scheduled device program: level-width
 distribution, padding overhead of the bucketed schedule, and per-kind
 task/flop breakdowns.  Used as structural sanity checks in tests and
 printed by the CLI with --stats.

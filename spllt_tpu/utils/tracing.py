@@ -1,7 +1,7 @@
 """Execution tracing.
 
 The reference hand-rolls Paje traces for ViTE (``trace_mod.F90``) and uses
-StarPU FxT; the TPU-native equivalents are
+StarPU FxT; the equivalents here are
   * a host-side event log dumped as Chrome-trace JSON (view in Perfetto) —
     records plan-level structure (level widths, batch launches), and
   * a thin wrapper over ``jax.profiler`` for full XLA device traces.
@@ -104,7 +104,7 @@ class TraceLog:
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """Capture an XLA device profile (TensorBoard/Perfetto viewable) —
-    the FxT/`starpu_fxt_tool` analogue for the TPU runtime."""
+    the FxT/`starpu_fxt_tool` analogue for the device runtime."""
     import jax
 
     jax.profiler.start_trace(logdir)

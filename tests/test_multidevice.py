@@ -84,39 +84,6 @@ def test_dryrun_entrypoint():
     dryrun(2)
 
 
-@pytest.mark.parametrize("ndev", [1, 2])
-def test_multidevice_mega_matches_oracle(ndev):
-    """Distributed path running the PRODUCTION megakernel bodies per
-    device (reference bar: identical kernel bodies across runtimes,
-    /root/reference/src/PaRSEC/factorize.jdf:363-566)."""
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    import jax.numpy as jnp
-
-    from spllt_tpu.parallel.forest_mega import make_sharded_factorize_mega
-
-    m, nb = 12, 8
-    devs = jax.devices("cpu")[:ndev]
-    mesh = Mesh(np.array(devs), ("tree",))
-    a = poisson2d(m)
-    opts = Options(ordering="nd-grid", grid_shape=(m, m), nb=nb, nemin=4,
-                   ndevices=ndev, prune_tree=True)
-    symb = analyse(a, opts)
-    plan = build_block_plan(symb, opts.nb)
-    fplan = build_factor_plan(symb, plan)
-    md = build_multidevice_factor(symb, plan, fplan, ndev)
-    pools_np, top_np = md.local_pools(symb.a_perm.values,
-                                      dtype=np.float32)
-    step = make_sharded_factorize_mega(md, mesh, np.float32)
-    pools = jax.device_put(jnp.asarray(pools_np),
-                           NamedSharding(mesh, P("tree")))
-    top = jax.device_put(jnp.asarray(top_np), NamedSharding(mesh, P()))
-    out = jax.jit(step)(pools, top)
-    g = reconstruct_global_pool(md, out, plan)
-    ref = assemble_np(plan, symb.a_perm.values, dtype=np.float64)
-    ref = factorize_np(ref, fplan)
-    assert float(np.max(np.abs(g - ref[:plan.nblocks]))) < 1e-4
-
-
 @pytest.mark.parametrize("ndev", [2, 4])
 def test_multidevice_solve(ndev):
     """Tree-partitioned solve matches the sequential oracle (the
@@ -200,26 +167,3 @@ def test_api_multidevice_factor_solve(ndev):
     num2 = factor(symb, a=a2)
     x2 = solve(num2, b)
     assert np.allclose(x2, x / 2.0, atol=1e-8)
-
-
-@pytest.mark.parametrize("ndev", [2, 4])
-def test_api_multidevice_mega_solve(ndev):
-    """Distributed solve with the PRODUCTION solve-megakernel bodies
-    (VERDICT r4 #5: the sharded solve previously ran scan bodies only;
-    ref bar: identical kernels across runtimes, factorize.jdf:363-566)."""
-    from spllt_tpu import factor, make_rhs, solve
-
-    a = poisson2d(12)
-    opts = Options(ordering="amd", nb=8, nemin=4, mode="batched",
-                   dtype="float32", refine=2, ndevices=ndev,
-                   schedule="mega", prune_tree=True)
-    symb = analyse(a, opts)
-    num = factor(symb)
-    xt, b = make_rhs(a, 2)
-    x = solve(num, b)
-    err = np.linalg.norm(a.matvec(x) - b) / np.linalg.norm(b)
-    assert err < 1e-10
-    # the mega bodies must actually be reachable (not the scan fallback)
-    _, _, solve_step = num.mdf
-    from spllt_tpu.parallel import forest_mega  # noqa: F401 (import ok)
-    assert solve_step(0, 2) is not None

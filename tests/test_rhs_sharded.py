@@ -17,12 +17,8 @@ def test_rhs_sharded_matches_single(ndev):
         pytest.skip("not enough virtual devices")
     m = 16
     a = poisson2d(m)
-    # pallas_updates='off': these tests cover the rhs-axis SHARDING;
-    # interpret-mode pallas inside an 8-virtual-device shard_map takes
-    # tens of minutes on 2 vCPUs (the pallas kernels have their own tests)
     opts = Options(ordering="nd-grid", grid_shape=(m, m), nb=16, nemin=8,
-                   mode="batched", dtype="float32", prune_tree=False,
-                   pallas_updates="off")
+                   mode="batched", dtype="float32", prune_tree=False)
     symb = analyse(a, opts)
     num = factor(symb)
 
@@ -46,8 +42,7 @@ def test_rhs_sharded_pads_odd_nrhs():
     m = 8
     a = poisson2d(m)
     opts = Options(ordering="nd-grid", grid_shape=(m, m), nb=8, nemin=4,
-                   mode="batched", dtype="float32", prune_tree=False,
-                   pallas_updates="off")
+                   mode="batched", dtype="float32", prune_tree=False)
     num = factor(analyse(a, opts))
     rng = np.random.default_rng(1)
     nrhs = 5          # not divisible by 4 -> padded internally
